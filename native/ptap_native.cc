@@ -1,6 +1,6 @@
-// pathtracerap_tpu native host runtime.
+// pathtracerap native host runtime.
 //
-// TPU-native replacement for the reference's C++ host-side components
+// Native replacement for the reference's C++ host-side components
 // (reference: PathTracerAP/Scene.cpp, PathTracerAP/Renderer.cpp:15-63):
 //
 //   * OBJ mesh import  — replaces the Assimp import path
@@ -13,12 +13,12 @@
 //     (Renderer.cpp:15-63) in parity mode, standards-compliant otherwise.
 //
 // Exposed as a plain C ABI consumed from Python via ctypes
-// (pathtracerap_tpu/native.py).  The device compute path stays pure
+// (pathtracerap/native.py).  The device compute path stays pure
 // JAX/XLA/Pallas; this library only accelerates host-side scene building,
 // which is the part of the reference that was genuinely native C++.
 //
 // Semantics are kept bit-identical to the pure-Python implementations in
-// pathtracerap_tpu/io/obj.py and pathtracerap_tpu/scene/grid.py so either
+// pathtracerap/io/obj.py and pathtracerap/scene/grid.py so either
 // backend can serve as the oracle for the other (tests/test_native.py).
 
 #include <cctype>

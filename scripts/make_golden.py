@@ -1,15 +1,17 @@
 """Render the reference scene at full resolution and compare against the
 reference's committed Render.bmp; write the repo's golden.
 
-Usage: python scripts/make_golden.py [spp] [engine]
-Writes assets/golden/reference_scene.bmp + prints similarity stats.
+Usage: python scripts/make_golden.py [spp] [engine] [reference_render_bmp]
+Writes assets/golden/reference_scene.bmp; given the reference's
+Render.bmp, prints similarity stats against it.
 """
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import functools
-import os
 import time
 
 import numpy as np
@@ -17,13 +19,13 @@ import numpy as np
 print = functools.partial(print, flush=True)
 
 spp = int(sys.argv[1]) if len(sys.argv) > 1 else 64
-engine = sys.argv[2] if len(sys.argv) > 2 else "fused"
+engine = sys.argv[2] if len(sys.argv) > 2 else "auto"
 
-from pathtracerap_tpu.config import RenderConfig
-from pathtracerap_tpu.io.bmp import quantize_image, read_bmp, write_bmp
-from pathtracerap_tpu.render.wavefront import Renderer
-from pathtracerap_tpu.scene.build import build_reference_scene
-from pathtracerap_tpu.utils.profiling import enable_compile_cache
+from pathtracerap.config import RenderConfig
+from pathtracerap.io.bmp import quantize_image, read_bmp, write_bmp
+from pathtracerap.render.wavefront import Renderer
+from pathtracerap.scene.build import build_reference_scene
+from pathtracerap.utils.profiling import enable_compile_cache
 
 enable_compile_cache()
 
@@ -36,14 +38,14 @@ t0 = time.perf_counter()
 img = np.asarray(r.render())
 print(f"rendered 1000x800 @ {spp}spp ({engine}) in {time.perf_counter()-t0:.1f}s")
 
-os.makedirs("/root/repo/assets/golden", exist_ok=True)
-out_path = "/root/repo/assets/golden/reference_scene.bmp"
+os.makedirs(os.path.join(ROOT, "assets", "golden"), exist_ok=True)
+out_path = os.path.join(ROOT, "assets", "golden", "reference_scene.bmp")
 accum = img * spp
 write_bmp(out_path, quantize_image(accum, spp))
 print("wrote", out_path)
 
-ref_path = "/root/reference/PathTracerAP/Render.bmp"
-if os.path.exists(ref_path):
+ref_path = sys.argv[3] if len(sys.argv) > 3 else ""
+if ref_path and os.path.exists(ref_path):
     ours = read_bmp(out_path).astype(np.float32) / 255.0
     ref = read_bmp(ref_path).astype(np.float32) / 255.0
     print("shapes:", ours.shape, ref.shape)

@@ -1,18 +1,19 @@
 """Parity-engine (per-ray DDA) full-res render of the reference scene —
-the r2 VERDICT item-7 cross-check of the committed fused golden.
+the cross-check of the committed soup-engine golden.
 
-One dispatch over all 1000x800 rays crashes the TPU worker (the ~100-tile
-scan of DDA while_loops runs minutes per dispatch and trips the execution
-watchdog), so the image renders in row bands — one dispatch per band, with
-the global RNG tile numbering preserved via ``tile_base``.
+The image renders in row bands — one dispatch per band, which keeps each
+dispatch short (the DDA while_loops wait for the slowest lane) — with the
+global RNG tile numbering preserved via ``tile_base``.
 
 Usage: python scripts/make_golden_parity.py [spp] [tile] [band_rows]
 """
 import functools
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import jax
 import numpy as np
@@ -23,16 +24,16 @@ spp = int(sys.argv[1]) if len(sys.argv) > 1 else 4
 tile = int(sys.argv[2]) if len(sys.argv) > 2 else 2048
 band_rows = int(sys.argv[3]) if len(sys.argv) > 3 else 50
 
-from pathtracerap_tpu.config import RenderConfig
-from pathtracerap_tpu.io.bmp import quantize_image, read_bmp, write_bmp
-from pathtracerap_tpu.render.camera import generate_rays
-from pathtracerap_tpu.render.wavefront import (
+from pathtracerap.config import RenderConfig
+from pathtracerap.io.bmp import quantize_image, read_bmp, write_bmp
+from pathtracerap.render.camera import generate_rays
+from pathtracerap.render.wavefront import (
     _make_tracer,
     _render_tile,
     render_ray_array,
 )
-from pathtracerap_tpu.scene.build import build_reference_scene
-from pathtracerap_tpu.utils.profiling import enable_compile_cache
+from pathtracerap.scene.build import build_reference_scene
+from pathtracerap.utils.profiling import enable_compile_cache
 
 enable_compile_cache()
 
@@ -66,11 +67,11 @@ for s in range(0, w * h, band):
           f"mean={part.mean()/spp:.4f}")
 
 acc = np.concatenate(parts, axis=0)
-out = "/root/repo/assets/golden/reference_scene_parity.bmp"
+out = os.path.join(ROOT, "assets", "golden", "reference_scene_parity.bmp")
 write_bmp(out, quantize_image(acc.reshape(h, w, 3), spp))
 print("wrote", out)
 
-g = read_bmp("/root/repo/assets/golden/reference_scene.bmp").astype(np.float32) / 255.0
+g = read_bmp(os.path.join(ROOT, "assets", "golden", "reference_scene.bmp")).astype(np.float32) / 255.0
 q = read_bmp(out).astype(np.float32) / 255.0
 
 
@@ -83,4 +84,4 @@ def down(x, f=8):
 
 mad = float(np.abs(down(q) - down(g)).mean())
 corr = float(np.corrcoef(down(q).ravel(), down(g).ravel())[0, 1])
-print(f"parity-vs-fused golden: downsampled mean|diff|={mad:.4f} corr={corr:.4f}")
+print(f"parity-vs-soup golden: downsampled mean|diff|={mad:.4f} corr={corr:.4f}")

@@ -16,8 +16,8 @@ sys.path.insert(0, "/root/repo")
 
 import numpy as np
 
-from pathtracerap_tpu.io.obj import ObjMesh, save_obj
-from pathtracerap_tpu.scene.build import make_sphere_mesh
+from pathtracerap.io.obj import ObjMesh, save_obj
+from pathtracerap.scene.build import make_sphere_mesh
 
 SUBDIV = 192  # 2 * SUBDIV^2 = 73,728 triangles
 

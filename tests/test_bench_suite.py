@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from pathtracerap_tpu.bench_suite import (
+from pathtracerap.bench_suite import (
     _ROOM_CAMERA,
     build_highpoly_scene,
     build_multimesh_scene,
     suite_configs,
 )
-from pathtracerap_tpu.config import RenderConfig
-from pathtracerap_tpu.render.wavefront import Renderer
+from pathtracerap.config import RenderConfig
+from pathtracerap.render.wavefront import Renderer
 
 
 def test_suite_configs_cover_baseline():
@@ -26,40 +26,29 @@ def test_multimesh_scene_renders():
         Renderer(
             scene.to_device(),
             RenderConfig(resolution=(32, 24), samples_per_pixel=1, max_bounces=3,
-                         camera=_ROOM_CAMERA, engine="fused"),
+                         camera=_ROOM_CAMERA, engine="pallas"),
         ).render()
     )
     assert np.all(np.isfinite(img)) and img.max() > 0.01
 
 
 def test_engine_routing_by_scene_size():
-    """effective_engine: many-block scenes route fused->binned (measured
-    crossover at 64 blocks); scenes above the ~160k-triangle VMEM pack
-    limit fall back to the dense blocked-DMA pallas path."""
+    """Every scene size bakes the kernel pack — there is no size cap and
+    no dense fallback — and ``auto`` resolves from the backend alone."""
     import jax
 
-    from pathtracerap_tpu.ops.plucker import bake_world_triangles
-    from pathtracerap_tpu.render.wavefront import effective_engine
+    from pathtracerap.ops.plucker import bake_world_triangles
+    from pathtracerap.pallas.trace import FRUSTUM_LIST_THRESHOLD
+    from pathtracerap.render.wavefront import resolve_engine
 
-    scene = build_highpoly_scene(subdiv=128, use_asset=False)  # ~66k tris: packed, 129+ blocks
-    dev = scene.to_device()
-    world = jax.jit(bake_world_triangles)(dev)
-    assert world.fused_ops is not None
-    assert world.block_aabb.shape[0] > 64
-    assert effective_engine("fused", world, jitter=False) == "binned"
-    assert effective_engine("fused", world, jitter=True) == "fused"
-
-    # ~200k tris: above the old r3 VMEM pack cap — since r4 the pack is
-    # kept (HBM-streamed worklist kernels) and the scene routes to the
-    # binned engine, whose kernels stream per-visit slabs above
-    # STREAM_BLOCKS; the dense fallback now starts at ~2M triangles
-    from pathtracerap_tpu.pallas.megakernel import STREAM_BLOCKS
-
-    scene2 = build_highpoly_scene(subdiv=224, use_asset=False)
-    world2 = jax.jit(bake_world_triangles)(scene2.to_device())
-    assert world2.fused_ops is not None
-    assert world2.block_aabb.shape[0] > STREAM_BLOCKS
-    assert effective_engine("fused", world2, jitter=False) == "binned"
+    for subdiv in (128, 224):  # ~66k and ~200k triangles
+        scene = build_highpoly_scene(subdiv=subdiv, use_asset=False)
+        world = jax.jit(bake_world_triangles)(scene.to_device())
+        nb = world.block_aabb.shape[0]
+        assert nb > FRUSTUM_LIST_THRESHOLD
+        assert world.tri_pack.shape == (22, world.num_triangles)
+        assert nb * world.tri_block >= world.n_valid
+    assert resolve_engine("auto") == "mxu"  # the CPU test backend
 
 
 def test_highpoly_regime_renders_on_binned_worklists():
@@ -68,7 +57,7 @@ def test_highpoly_regime_renders_on_binned_worklists():
         Renderer(
             scene.to_device(),
             RenderConfig(resolution=(24, 16), samples_per_pixel=1, max_bounces=2,
-                         camera=_ROOM_CAMERA, engine="fused"),  # routes to binned
+                         camera=_ROOM_CAMERA, engine="pallas"),
         ).render()
     )
     assert np.all(np.isfinite(img)) and img.max() > 0.01

@@ -1,11 +1,8 @@
-"""PTAP_DEBUG mode: explicit det==0/NaN masks + checkify'd invariants.
+"""PTAP_DEBUG mode: checkify'd invariants of the traversal kernel.
 
-The fast kernels rely on IEEE inf/NaN compare semantics to reject
-parallel/degenerate triangles without an explicit mask
-(megakernel._trace_inkernel, trace._fused_list_kernel).  These tests pin
-that reasoning: the explicit-mask debug kernels must agree with the fast
-kernels on grazing/degenerate rays, and the checkify wrapper must accept a
-healthy traversal and fire on a broken one.
+The kernel keeps the reference's explicit det == 0 mask; these tests pin
+its agreement with the XLA sweep on grazing/degenerate rays, and that the
+checkify wrapper accepts a healthy traversal and fires on a broken one.
 """
 
 import numpy as np
@@ -13,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pathtracerap_tpu.config import CameraConfig, RenderConfig
-from pathtracerap_tpu.ops.plucker import bake_world_triangles
-from pathtracerap_tpu.pallas.trace import trace_pallas
-from pathtracerap_tpu.render.wavefront import Renderer
-from pathtracerap_tpu.scene.build import build_cornell_box_scene
+from pathtracerap.config import CameraConfig, RenderConfig
+from pathtracerap.ops.plucker import bake_world_triangles
+from pathtracerap.pallas.trace import trace_pallas
+from pathtracerap.render.wavefront import Renderer
+from pathtracerap.scene.build import build_cornell_box_scene
 
 CAMERA = CameraConfig(
     position=(0.0, 0.0, 150.0),
@@ -64,32 +61,37 @@ def _degenerate_rays(world):
 
 
 def test_debug_kernel_matches_fast_kernel_on_degenerates(world):
+    from pathtracerap.ops.plucker import trace_mxu
+
     ro, rd = _degenerate_rays(world)
-    fast = trace_pallas(world, ro, rd, debug=False)
-    dbg = trace_pallas(world, ro, rd, debug=True)
-    np.testing.assert_allclose(np.asarray(fast.t), np.asarray(dbg.t), rtol=1e-6)
+    fast = trace_pallas(world, ro, rd)
+    ref = trace_mxu(world, ro, rd)
+    # the two engines sum the side products in different orders: at an
+    # origin on the surface (t ~ 0) the absolute error of t is set by the
+    # coordinate magnitude (~1e2) times f32 epsilon, not by t
+    np.testing.assert_allclose(
+        np.asarray(fast.t), np.asarray(ref.t), rtol=1e-6, atol=1e-4
+    )
     np.testing.assert_array_equal(
-        np.asarray(fast.mat_type), np.asarray(dbg.mat_type)
+        np.asarray(fast.mat_type), np.asarray(ref.mat_type)
     )
 
 
-def test_debug_megakernel_image_matches_fast(world):
+def test_debug_megakernel_image_matches_fast(monkeypatch):
+    """PTAP_DEBUG=1 validates the kernel before rendering; the image is
+    the one the kernel engine renders without it."""
     scene = build_cornell_box_scene().to_device()
     cfg = RenderConfig(resolution=(16, 8), samples_per_pixel=2, max_bounces=3,
-                       camera=CAMERA, engine="fused")
-    from pathtracerap_tpu.pallas.megakernel import render_samples_fused
-    from pathtracerap_tpu.render.camera import generate_rays
-
-    ro, rd = generate_rays(cfg.camera, cfg.resolution)
-    key = jax.random.PRNGKey(0)
-    fast = render_samples_fused(world, ro, rd, key, 2, 3, debug=False)
-    dbg = render_samples_fused(world, ro, rd, key, 2, 3, debug=True)
-    np.testing.assert_allclose(np.asarray(fast), np.asarray(dbg), atol=1e-6)
+                       camera=CAMERA, engine="pallas")
+    fast = np.asarray(Renderer(scene, cfg).render())
+    monkeypatch.setenv("PTAP_DEBUG", "1")
+    dbg = np.asarray(Renderer(scene, cfg).render())
+    np.testing.assert_allclose(fast, dbg, atol=1e-6)
 
 
 def test_checked_trace_passes_on_healthy_scene(world):
-    from pathtracerap_tpu.utils.debug import checked_trace
-    from pathtracerap_tpu.render.camera import generate_rays
+    from pathtracerap.utils.debug import checked_trace
+    from pathtracerap.render.camera import generate_rays
 
     ro, rd = generate_rays(CAMERA, (16, 8))
     rec = checked_trace(world, ro, rd)
@@ -100,8 +102,8 @@ def test_checked_trace_fires_on_broken_invariant(world):
     """Marking every triangle invalid while leaving its geometry hittable
     violates the padding-rejection invariant — checkify must raise."""
     from jax.experimental.checkify import JaxRuntimeError
-    from pathtracerap_tpu.utils.debug import checked_trace
-    from pathtracerap_tpu.render.camera import generate_rays
+    from pathtracerap.utils.debug import checked_trace
+    from pathtracerap.render.camera import generate_rays
 
     broken = world.replace(valid=jnp.zeros_like(world.valid))
     ro, rd = generate_rays(CAMERA, (16, 8))
@@ -114,6 +116,6 @@ def test_renderer_facade_debug_env(monkeypatch):
     monkeypatch.setenv("PTAP_DEBUG", "1")
     scene = build_cornell_box_scene().to_device()
     cfg = RenderConfig(resolution=(16, 8), samples_per_pixel=1, max_bounces=2,
-                       camera=CAMERA, engine="fused")
+                       camera=CAMERA, engine="pallas")
     img = np.asarray(Renderer(scene, cfg).render())
     assert np.all(np.isfinite(img))

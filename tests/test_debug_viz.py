@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from pathtracerap_tpu.config import CameraConfig, RenderConfig
-from pathtracerap_tpu.render.debug_viz import render_aovs, write_aov_bmps
-from pathtracerap_tpu.scene.build import build_cornell_box_scene
+from pathtracerap.config import CameraConfig, RenderConfig
+from pathtracerap.render.debug_viz import render_aovs, write_aov_bmps
+from pathtracerap.scene.build import build_cornell_box_scene
 
 CFG = RenderConfig(
     resolution=(24, 16),
@@ -38,7 +38,7 @@ def test_aov_bmps_written(tmp_path):
     assert set(paths) == {
         "depth", "normal", "mat_type", "albedo", "hit", "dda_steps", "tri_tests"
     }
-    from pathtracerap_tpu.io.bmp import read_bmp
+    from pathtracerap.io.bmp import read_bmp
 
     for p in paths.values():
         img = read_bmp(p)

@@ -3,13 +3,13 @@ the 8-device CPU mesh; real pods exercise the same code paths)."""
 
 import numpy as np
 
-from pathtracerap_tpu.config import CameraConfig, RenderConfig
-from pathtracerap_tpu.parallel.distributed import (
+from pathtracerap.config import CameraConfig, RenderConfig
+from pathtracerap.parallel.distributed import (
     _pow2_counts,
     init_distributed,
     scaling_report,
 )
-from pathtracerap_tpu.scene.build import build_cornell_box_scene
+from pathtracerap.scene.build import build_cornell_box_scene
 
 CAMERA = CameraConfig(
     position=(0.0, 0.0, 150.0),
@@ -62,7 +62,7 @@ def test_two_process_distributed(tmp_path):
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    from pathtracerap_tpu.diff.grad import extract_params, make_sharded_train_step
+    from pathtracerap.diff.grad import extract_params, make_sharded_train_step
 
     # free port for the coordinator
     with socket.socket() as s:

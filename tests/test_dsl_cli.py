@@ -6,9 +6,9 @@ import os
 import numpy as np
 import pytest
 
-from pathtracerap_tpu.cli import main as cli_main
-from pathtracerap_tpu.config import RenderConfig
-from pathtracerap_tpu.scene.dsl import (
+from pathtracerap.cli import main as cli_main
+from pathtracerap.config import RenderConfig
+from pathtracerap.scene.dsl import (
     SceneParseError,
     parse_scene,
     render_config_from_parsed,
@@ -69,7 +69,7 @@ def test_dsl_parses_and_builds():
 
 
 def test_dsl_renders(tmp_path):
-    from pathtracerap_tpu.render.wavefront import Renderer
+    from pathtracerap.render.wavefront import Renderer
 
     p = parse_scene(SCENE_TEXT)
     cfg = render_config_from_parsed(p)
@@ -89,7 +89,7 @@ def test_dsl_errors():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from pathtracerap_tpu.utils.checkpoint import (
+    from pathtracerap.utils.checkpoint import (
         RenderCheckpoint,
         load_checkpoint,
         save_checkpoint,
@@ -112,9 +112,9 @@ def test_checkpoint_roundtrip(tmp_path):
 
 def test_render_resume_is_exact(tmp_path):
     """Interrupted + resumed render == unbroken render, bit-for-bit."""
-    from pathtracerap_tpu.config import CameraConfig
-    from pathtracerap_tpu.render.wavefront import Renderer
-    from pathtracerap_tpu.scene.build import build_cornell_box_scene
+    from pathtracerap.config import CameraConfig
+    from pathtracerap.render.wavefront import Renderer
+    from pathtracerap.scene.build import build_cornell_box_scene
 
     scene = build_cornell_box_scene().to_device()
     cam = CameraConfig(position=(0.0, 0.0, 150.0), plane_x=(-40.0, 40.0),
@@ -135,13 +135,13 @@ def test_render_resume_is_exact(tmp_path):
     import dataclasses
     r_short = Renderer(scene, dataclasses.replace(cfg, samples_per_pixel=2))
     # writing a checkpoint whose config matches the FULL config
-    from pathtracerap_tpu.render.wavefront import render_accumulate
+    from pathtracerap.render.wavefront import render_accumulate
     import jax
 
     key = jax.random.PRNGKey(cfg.seed)
     acc = render_accumulate(scene, key, cam, cfg.resolution, n_samples=2,
                             max_bounces=2, engine="mxu", world=r.world)
-    from pathtracerap_tpu.utils.checkpoint import RenderCheckpoint, save_checkpoint
+    from pathtracerap.utils.checkpoint import RenderCheckpoint, save_checkpoint
 
     save_checkpoint(ckpt, RenderCheckpoint(
         accum=np.asarray(acc), samples_done=2, seed=cfg.seed,
@@ -154,10 +154,10 @@ def test_render_resume_is_exact(tmp_path):
 def test_checkpoint_config_mismatch_refused(tmp_path):
     import dataclasses
 
-    from pathtracerap_tpu.config import CameraConfig
-    from pathtracerap_tpu.render.wavefront import Renderer
-    from pathtracerap_tpu.scene.build import build_cornell_box_scene
-    from pathtracerap_tpu.utils.checkpoint import RenderCheckpoint, save_checkpoint
+    from pathtracerap.config import CameraConfig
+    from pathtracerap.render.wavefront import Renderer
+    from pathtracerap.scene.build import build_cornell_box_scene
+    from pathtracerap.utils.checkpoint import RenderCheckpoint, save_checkpoint
 
     scene = build_cornell_box_scene().to_device()
     cam = CameraConfig(position=(0.0, 0.0, 150.0), plane_x=(-40.0, 40.0),
@@ -184,7 +184,7 @@ def test_cli_render_and_info(tmp_path, capsys):
     ])
     assert rc == 0
     assert out.exists()
-    from pathtracerap_tpu.io.bmp import read_bmp
+    from pathtracerap.io.bmp import read_bmp
 
     img = read_bmp(str(out))
     assert img.shape == (24, 24, 3)
@@ -270,7 +270,7 @@ def test_cli_invert_dp_matches_single_device(tmp_path, capsys):
 def test_dsl_lowercase_booleans():
     """`quality: false` must actually disable quality mode (bool("false")
     is True — the r5 review catch)."""
-    from pathtracerap_tpu.scene.dsl import _parse_value
+    from pathtracerap.scene.dsl import _parse_value
 
     assert _parse_value("true") is True
     assert _parse_value("false") is False

@@ -11,7 +11,7 @@ import pytest
 
 import jax
 
-from pathtracerap_tpu.utils.failure import (
+from pathtracerap.utils.failure import (
     FaultInjector,
     Heartbeat,
     InjectedFault,

@@ -5,16 +5,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pathtracerap_tpu.config import CameraConfig
-from pathtracerap_tpu.diff.grad import (
+from pathtracerap.config import CameraConfig
+from pathtracerap.diff.grad import (
     extract_params,
     image_loss,
     make_sharded_train_step,
     make_train_step,
     render_for_params,
 )
-from pathtracerap_tpu.parallel.sharding import default_mesh
-from pathtracerap_tpu.scene.build import build_cornell_box_scene
+from pathtracerap.parallel.sharding import default_mesh
+from pathtracerap.scene.build import build_cornell_box_scene
 
 RES = (16, 8)
 CAMERA = CameraConfig(
@@ -92,7 +92,7 @@ def test_color_has_no_vertex_gradient_by_design(cornell_dev):
 
 
 def test_vertex_gradients_flow_through_depth_normal_aovs(cornell_dev):
-    from pathtracerap_tpu.diff.grad import geometry_loss, render_aovs
+    from pathtracerap.diff.grad import geometry_loss, render_aovs
 
     params = extract_params(cornell_dev, ("vertex_pos",))
     # target: AOVs of a slightly shrunken scene
@@ -157,10 +157,12 @@ def test_sharded_train_step_matches_single_device(cornell_dev):
     assert delta.max() > 0.0
 
 
-def test_pallas_diff_grads_match_mxu_engine(cornell_dev):
-    """The fast differentiable path (Pallas forward + frozen-argmin
-    recompute backward, diff/fast.py) must produce the same gradients as
-    differentiating straight through the XLA MXU engine."""
+@pytest.mark.parametrize("tile_size", [256, 8192])
+def test_pallas_diff_grads_match_mxu_engine(cornell_dev, tile_size):
+    """The fast differentiable path (kernel forward + frozen-argmin
+    recompute backward, diff/fast.py) must produce the same loss and
+    gradients as differentiating straight through the XLA sweep, with a
+    render tile smaller than the image and with one that holds it all."""
     key = jax.random.PRNGKey(4)
     params = extract_params(cornell_dev, ("mat_color", "vertex_pos"))
     target = jnp.zeros((RES[0] * RES[1], 3), jnp.float32)
@@ -168,11 +170,12 @@ def test_pallas_diff_grads_match_mxu_engine(cornell_dev):
     def loss(params, engine):
         return image_loss(
             params, cornell_dev, target, key, CAMERA, RES, N_SAMPLES, BOUNCES,
-            tile_size=256, engine=engine,
+            tile_size=tile_size, engine=engine,
         )
 
-    g_p = jax.jit(jax.grad(lambda p: loss(p, "pallas")))(params)
-    g_m = jax.jit(jax.grad(lambda p: loss(p, "mxu")))(params)
+    l_p, g_p = jax.jit(jax.value_and_grad(lambda p: loss(p, "pallas")))(params)
+    l_m, g_m = jax.jit(jax.value_and_grad(lambda p: loss(p, "mxu")))(params)
+    np.testing.assert_allclose(float(l_p), float(l_m), rtol=1e-5)
     np.testing.assert_allclose(
         np.asarray(g_p["mat_color"]), np.asarray(g_m["mat_color"]),
         rtol=1e-4, atol=1e-7,
@@ -181,73 +184,6 @@ def test_pallas_diff_grads_match_mxu_engine(cornell_dev):
         np.asarray(g_p["vertex_pos"]), np.asarray(g_m["vertex_pos"]),
         rtol=1e-4, atol=1e-7,
     )
-
-
-def test_fused_diff_grads_match_mxu_engine(cornell_dev):
-    """The whole-sample megakernel diff path (forward under stop_gradient
-    emitting per-bounce hit indices, frozen-topology XLA replay backward,
-    diff/fast.render_samples_fused_diff) must match the MXU engine's
-    gradients.  tile_size >= n on the mxu side makes both consume the
-    single-tile (tile index 0) uniform stream."""
-    key = jax.random.PRNGKey(8)
-    params = extract_params(cornell_dev, ("mat_color", "vertex_pos"))
-    target = jnp.zeros((RES[0] * RES[1], 3), jnp.float32)
-
-    def loss(params, engine):
-        return image_loss(
-            params, cornell_dev, target, key, CAMERA, RES, N_SAMPLES, BOUNCES,
-            tile_size=8192, engine=engine,
-        )
-
-    (l_f, g_f) = jax.jit(jax.value_and_grad(lambda p: loss(p, "fused")))(params)
-    (l_m, g_m) = jax.jit(jax.value_and_grad(lambda p: loss(p, "mxu")))(params)
-    np.testing.assert_allclose(float(l_f), float(l_m), rtol=1e-5)
-    np.testing.assert_allclose(
-        np.asarray(g_f["mat_color"]), np.asarray(g_m["mat_color"]),
-        rtol=1e-4, atol=1e-7,
-    )
-    np.testing.assert_allclose(
-        np.asarray(g_f["vertex_pos"]), np.asarray(g_m["vertex_pos"]),
-        rtol=1e-4, atol=1e-7,
-    )
-
-
-def test_sample_batched_diff_forward_bit_identical():
-    """r5: the sample-batched binned diff forward (groups of samples
-    traced as one sorted wavefront, diff/fast.render_samples_fused_diff)
-    must reproduce the unbatched forward bit-for-bit and the same
-    mat_color gradients on a multi-block scene (where the binned
-    deferred-trace forward is the active producer)."""
-    import pathtracerap_tpu.pallas.megakernel as MK
-    from pathtracerap_tpu.scene.build import build_reference_scene
-
-    scene = build_reference_scene().to_device()
-    key = jax.random.PRNGKey(5)
-    res = (16, 8)
-    cam = CameraConfig()
-    params = extract_params(scene, ("mat_color",))
-
-    def render(p):
-        return render_for_params(
-            p, scene, key, cam, res, n_samples=3, max_bounces=3,
-            engine="fused",
-        )
-
-    def loss(p):
-        return jnp.sum(render(p) ** 2)
-
-    old = MK.BINNED_SAMPLE_BATCH
-    try:
-        MK.BINNED_SAMPLE_BATCH = 1
-        img1 = np.asarray(jax.jit(render)(params))
-        g1 = np.asarray(jax.jit(jax.grad(loss))(params)["mat_color"])
-        MK.BINNED_SAMPLE_BATCH = 2  # 3 samples -> one group of 2 + rem 1
-        img2 = np.asarray(jax.jit(render)(params))
-        g2 = np.asarray(jax.jit(jax.grad(loss))(params)["mat_color"])
-    finally:
-        MK.BINNED_SAMPLE_BATCH = old
-    np.testing.assert_array_equal(img1, img2)
-    np.testing.assert_allclose(g1, g2, rtol=1e-6, atol=1e-8)
 
 
 def test_quality_mode_vertex_gradients_through_color(cornell_dev):
@@ -345,13 +281,13 @@ def test_sharded_train_step_masks_padding_rays():
     import numpy as np
     from jax.sharding import Mesh
 
-    from pathtracerap_tpu.diff.grad import (
+    from pathtracerap.diff.grad import (
         extract_params,
         make_sharded_train_step,
         render_for_params,
     )
-    from pathtracerap_tpu.render.camera import generate_rays
-    from pathtracerap_tpu.scene.build import build_cornell_box_scene
+    from pathtracerap.render.camera import generate_rays
+    from pathtracerap.scene.build import build_cornell_box_scene
 
     scene = build_cornell_box_scene().to_device()
     camera = CAMERA
@@ -401,14 +337,14 @@ def test_refractive_scene_gradients_match_finite_difference():
     parameters being checked.)"""
     import os
 
-    from pathtracerap_tpu.scene.dsl import load_scene_file
+    from pathtracerap.scene.dsl import load_scene_file
 
     scn = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "scenes", "glass_sphere.scn",
     )
     dev = load_scene_file(scn).scene.to_device()
-    from pathtracerap_tpu.config import CameraConfig
+    from pathtracerap.config import CameraConfig
 
     cam = CameraConfig(position=(0.0, 0.0, 110.0), plane_x=(-45.0, 45.0),
                        plane_y=(-38.0, 30.0), plane_z=60.0)
@@ -445,35 +381,3 @@ def test_refractive_scene_gradients_match_finite_difference():
         np.testing.assert_allclose(g[i, c], fd, rtol=5e-2, atol=1e-4)
         checked += 1
     assert checked >= 2
-
-
-def test_diff_binned_forward_matches_fused_forward(monkeypatch):
-    """r5: the diff path's frozen-topology producer can be the binned
-    deferred-trace forward (fastest engine on multi-block scenes); its
-    idx stream must yield the same replayed image and gradients as the
-    fused emit_idx producer."""
-    import os
-
-    from pathtracerap_tpu.diff.grad import extract_params, render_for_params
-    from pathtracerap_tpu.scene.build import build_reference_scene
-
-    scene = build_reference_scene().to_device()
-    res = (64, 32)
-    key = jax.random.PRNGKey(1)
-    params = extract_params(scene, ("mat_color",))
-
-    def render(fw):
-        monkeypatch.setenv("PTAP_DIFF_FORWARD", fw)
-        img, g = jax.value_and_grad(
-            lambda p: jnp.sum(
-                render_for_params(
-                    p, scene, key, CAMERA, res, 2, 4, engine="fused",
-                ) ** 2
-            )
-        )(params)
-        return np.asarray(img), np.asarray(g["mat_color"])
-
-    v_f, g_f = render("fused")
-    v_b, g_b = render("binned")
-    np.testing.assert_allclose(v_b, v_f, rtol=1e-6)
-    np.testing.assert_allclose(g_b, g_f, rtol=1e-5, atol=1e-7)

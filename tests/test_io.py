@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from pathtracerap_tpu.io.bmp import quantize_image, read_bmp, write_bmp
+from pathtracerap.io.bmp import quantize_image, read_bmp, write_bmp
 
 
 def test_bmp_header_and_size(tmp_path):

@@ -11,11 +11,11 @@ import os
 import numpy as np
 import pytest
 
-from pathtracerap_tpu import native
-from pathtracerap_tpu.io.bmp import read_bmp, write_bmp
-from pathtracerap_tpu.io.obj import load_obj
-from pathtracerap_tpu.scene.build import default_asset_dir
-from pathtracerap_tpu.scene.grid import build_uniform_grid
+from pathtracerap import native
+from pathtracerap.io.bmp import read_bmp, write_bmp
+from pathtracerap.io.obj import load_obj
+from pathtracerap.scene.build import default_asset_dir
+from pathtracerap.scene.grid import build_uniform_grid
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable (g++/make missing)"

@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pathtracerap_tpu import constants
-from pathtracerap_tpu.ops.intersect import moller_trumbore, slab_test, trace_parity
-from pathtracerap_tpu.ops.plucker import bake_world_triangles, trace_mxu
-from pathtracerap_tpu.ops.sampling import coat_scatter, cosine_hemisphere, metal_scatter
-from pathtracerap_tpu.ops.math import reflect_parity
-from pathtracerap_tpu.oracle import reference as oracle
-from pathtracerap_tpu.scene.build import build_cornell_box_scene
+from pathtracerap import constants
+from pathtracerap.ops.intersect import moller_trumbore, slab_test, trace_parity
+from pathtracerap.ops.plucker import bake_world_triangles, trace_mxu
+from pathtracerap.ops.sampling import coat_scatter, cosine_hemisphere, metal_scatter
+from pathtracerap.ops.math import reflect_parity
+from pathtracerap.oracle import reference as oracle
+from pathtracerap.scene.build import build_cornell_box_scene
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +102,7 @@ def test_trace_parity_vs_scalar_oracle(cornell, cornell_dev, rng):
 
 
 def test_trace_mxu_vs_bruteforce_nearest(cornell, cornell_dev, rng):
-    """The MXU engine must return the true nearest hit (no DDA quirk)."""
+    """The mxu engine must return the true nearest hit (no DDA quirk)."""
     n = 100
     ro = rng.uniform(-150, 150, size=(n, 3)).astype(np.float32)
     target = rng.uniform(-180, 180, size=(n, 3)).astype(np.float32)

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from pathtracerap_tpu.io.obj import ObjMesh, load_obj, save_obj
-from pathtracerap_tpu.io.ply import PlyParseError, load_ply, save_ply
-from pathtracerap_tpu.scene.build import SceneBuilder, make_box_mesh
+from pathtracerap.io.obj import ObjMesh, load_obj, save_obj
+from pathtracerap.io.ply import PlyParseError, load_ply, save_ply
+from pathtracerap.scene.build import SceneBuilder, make_box_mesh
 
 
 @pytest.fixture()
@@ -107,7 +107,7 @@ def test_out_of_range_face_index(tmp_path):
 
 def test_builder_dispatches_ply(tmp_path, box):
     """SceneBuilder.add_mesh_file loads .ply like .obj; identical scenes."""
-    from pathtracerap_tpu.scene.types import Material, MaterialType
+    from pathtracerap.scene.types import Material, MaterialType
 
     pp = str(tmp_path / "m.ply")
     po = str(tmp_path / "m.obj")

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pathtracerap_tpu.config import CameraConfig, RenderConfig
-from pathtracerap_tpu.ops.rng import sample_uniforms
-from pathtracerap_tpu.oracle.reference import render_scalar
-from pathtracerap_tpu.render.camera import generate_rays
-from pathtracerap_tpu.render.wavefront import Renderer, render_sample
-from pathtracerap_tpu.scene.build import build_cornell_box_scene
+from pathtracerap.config import CameraConfig, RenderConfig
+from pathtracerap.ops.rng import sample_uniforms
+from pathtracerap.oracle.reference import render_scalar
+from pathtracerap.render.camera import generate_rays
+from pathtracerap.render.wavefront import Renderer, render_sample
+from pathtracerap.scene.build import build_cornell_box_scene
 
 RES = (48, 32)
 CAMERA = CameraConfig(

@@ -3,16 +3,16 @@
 import numpy as np
 import pytest
 
-from pathtracerap_tpu import constants
-from pathtracerap_tpu.io.obj import load_obj
-from pathtracerap_tpu.scene.build import (
+from pathtracerap import constants
+from pathtracerap.io.obj import load_obj
+from pathtracerap.scene.build import (
     default_asset_dir,
     build_cornell_box_scene,
     build_reference_scene,
     rotation_y_matrix,
     trs,
 )
-from pathtracerap_tpu.scene.grid import build_uniform_grid, grids_to_ell
+from pathtracerap.scene.grid import build_uniform_grid, grids_to_ell
 
 import os
 

@@ -5,14 +5,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pathtracerap_tpu.config import CameraConfig, RenderConfig
-from pathtracerap_tpu.parallel.sharding import (
+from pathtracerap.config import CameraConfig, RenderConfig
+from pathtracerap.parallel.sharding import (
     default_mesh,
     render_accumulate_sample_parallel,
     render_image_dp,
 )
-from pathtracerap_tpu.render.wavefront import Renderer
-from pathtracerap_tpu.scene.build import build_cornell_box_scene
+from pathtracerap.render.wavefront import Renderer
+from pathtracerap.scene.build import build_cornell_box_scene
 
 RES = (32, 16)
 CAMERA = CameraConfig(
@@ -59,14 +59,13 @@ def test_ray_sharded_render_runs_and_is_sane(cornell_dev):
     assert abs(img.mean() - facade.mean()) < 0.05
 
 
-@pytest.mark.parametrize("engine", ["fused", "binned"])
+@pytest.mark.parametrize("engine", ["mxu", "pallas"])
 def test_dp_megakernel_bitmatches_single_device(cornell_dev, engine):
-    """r2 VERDICT weak item 3: the sharded renderer must run the megakernel
-    engines, not silently downgrade to 'pallas'.  Each device's ray slab is
-    padded to whole 8192-ray RNG tiles, so the global (tile, row) -> uniform
-    mapping — and therefore the image — is bit-identical to the facade's
-    single-device render."""
-    from pathtracerap_tpu.pallas.megakernel import RNG_TILE
+    """The sharded renderer runs the requested engine and reproduces the
+    facade's single-device image: device d's tiles are numbered from
+    ``d * tiles_per_device``, so every ray keeps its global (tile, row)
+    uniform stream."""
+    from pathtracerap.ops.rng import RNG_TILE
 
     res = (128, 128)  # 16384 rays = 2 RNG tiles; devices 2-7 trace padding
     assert res[0] * res[1] == 2 * RNG_TILE
@@ -74,13 +73,16 @@ def test_dp_megakernel_bitmatches_single_device(cornell_dev, engine):
         resolution=res, samples_per_pixel=1, max_bounces=3, camera=CAMERA,
         engine=engine,
     )
-    img_dp = np.asarray(render_image_dp(cornell_dev, cfg, mesh=default_mesh()))
+    # the facade's longer tile draws per RNG_TILE sub-tile, so DP over
+    # RNG_TILE-ray tiles reproduces it exactly
+    img_dp = np.asarray(render_image_dp(cornell_dev, cfg, mesh=default_mesh(),
+                                        tile_size=RNG_TILE))
     img_1 = np.asarray(Renderer(cornell_dev, cfg).render())
     np.testing.assert_allclose(img_dp, img_1, atol=1e-6)
 
 
 def test_sample_parallel_matches_device_count_invariance(cornell_dev):
-    from pathtracerap_tpu.ops.plucker import bake_world_triangles
+    from pathtracerap.ops.plucker import bake_world_triangles
 
     mesh = default_mesh()
     world = jax.jit(bake_world_triangles)(cornell_dev)
